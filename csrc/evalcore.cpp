@@ -1,10 +1,9 @@
 // Native host evaluator core: the hot f64 arithmetic of the
 // pseudorange/PVT host path as straight-line C++.
 //
-// On the 1-core deployment host the evaluator's cost is dominated by
-// per-call overhead of many small numpy ops (BENCH_r04
-// serving_stage_sec: consume+evaluate are the whole serving knee once
-// the device dispatch is fused).  This library moves the four hottest
+// The evaluator's cost is dominated by per-call overhead of many small
+// numpy ops (consume+evaluate are the serving knee once the device
+// dispatch is fused).  This library moves the four hottest
 // pure-math stages native, following the csrc/navscan.cpp pattern:
 // Python keeps the control flow and remains the single source of truth
 // for semantics (GSDR_EVALCORE=0 switches back; equivalence tests pin
@@ -12,19 +11,19 @@
 //
 // Behavior surfaces mirrored from this repo's own modules (reference
 // call sites cited there):
-//   gsdr_ecef        <- gps_sdr_tpu/models/orbits.py ecef_coord
+//   gsdr_ecef        <- gps_sdr/models/orbits.py ecef_coord
 //                       (reference SatPos.ecefCoord, gpslib.py:589-642)
-//   gsdr_fix_batch   <- gps_sdr_tpu/ops/pvt.py solve_fix_batch
+//   gsdr_fix_batch   <- gps_sdr/ops/pvt.py solve_fix_batch
 //                       (reference leastSquaresPos, gpslib.py:1641-1791)
-//   gsdr_sigma_slope <- gps_sdr_tpu/models/pseudorange.py
+//   gsdr_sigma_slope <- gps_sdr/models/pseudorange.py
 //                       _sigma_and_slope (reference getStdDev,
 //                       gpslib.py:864-883)
-//   gsdr_unwrap      <- gps_sdr_tpu/runtime/evaluator.py
+//   gsdr_unwrap      <- gps_sdr/runtime/evaluator.py
 //                       unwrap_code_phases (reference cpOflCorrection,
 //                       gpseval.py:377-417)
 //
 // All arrays are C-contiguous f64/i64 unless noted.  Single-threaded
-// by design: the deployment host has one burstable core.
+// by design: serving runs one evaluator thread per process.
 
 #include <cmath>
 #include <cstdint>

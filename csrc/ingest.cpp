@@ -1,6 +1,6 @@
 // Host-side IQ ingest: the byte-crunching edge of the data path.
 //
-// TPU-native equivalent of the reference's native front-end surface
+// Equivalent of the reference's native front-end surface
 // (librtlsdr delivers packed 8-bit IQ; numpy unpacks it,
 // reference src/gpsrecv.py:168-172).  Everything device-side is
 // JAX/XLA; this shim keeps the host edge off the Python interpreter:
@@ -15,7 +15,7 @@
 //                 bounded deque (src/gpsrecv.py:76-104)
 //
 // Built as a plain shared library (no pybind11 in the image); Python
-// binds via ctypes (gps_sdr_tpu/runtime/_native.py).
+// binds via ctypes (gps_sdr/runtime/_native.py).
 
 #include <atomic>
 #include <cstdint>

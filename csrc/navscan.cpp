@@ -1,7 +1,7 @@
 // Native subframe scanner: preamble correlation + walk + parity
 // check/unscramble over a logical-bit buffer.
 //
-// Mirrors gps_sdr_tpu/models/navmsg.py poll_subframes' scan loop and
+// Mirrors gps_sdr/models/navmsg.py poll_subframes' scan loop and
 // check_and_unscramble (behavior surface: the reference's evalGpsBits +
 // CheckParity, /root/reference/src/gpslib.py:379-405, 1510-1580) — but
 // as straight-line C++: on the 1-core deployment host the per-call
@@ -12,7 +12,7 @@
 // Python (derived from the same declarative tables the encoder uses),
 // so there is exactly one source of truth for the IS-GPS-200 layout.
 //
-// Interface (ctypes, see gps_sdr_tpu/models/_navscan.py):
+// Interface (ctypes, see gps_sdr/models/_navscan.py):
 //   n_out = gsdr_navscan(bits, n, taps, seed29,
 //                        id_word, id_lo, id_hi, max_out,
 //                        out_starts, out_words, final_start)

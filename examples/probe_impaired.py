@@ -10,9 +10,9 @@ sys.path.insert(0, ".")
 import numpy as np  # noqa: E402
 
 from tests.test_impaired_replay import CFG, _capture_path, _scenario  # noqa: E402
-from gps_sdr_tpu.runtime.session import Session  # noqa: E402
-from gps_sdr_tpu.runtime.sources import replay_blocks  # noqa: E402
-from gps_sdr_tpu.utils.geodesy import ecef_to_geo  # noqa: E402
+from gps_sdr.runtime.session import Session  # noqa: E402
+from gps_sdr.runtime.sources import replay_blocks  # noqa: E402
+from gps_sdr.utils.geodesy import ecef_to_geo  # noqa: E402
 
 
 def main():
@@ -20,9 +20,9 @@ def main():
         import dataclasses
 
         import tests.test_impaired_replay as tir
-        from gps_sdr_tpu.models.scenario import make_scenario
-        from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-        from gps_sdr_tpu.runtime.sources import pack_iq
+        from gps_sdr.models.scenario import make_scenario
+        from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+        from gps_sdr.runtime.sources import pack_iq
         from tests.conftest import _SYNTH_CACHE
 
         def _scn0():

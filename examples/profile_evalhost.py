@@ -21,7 +21,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gps_sdr_tpu.utils.profiling import enable_compile_cache  # noqa: E402
+from gps_sdr.utils.profiling import enable_compile_cache  # noqa: E402
 enable_compile_cache()
 
 p = argparse.ArgumentParser()
@@ -37,11 +37,11 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from gps_sdr_tpu.config import ReceiverConfig  # noqa: E402
-from gps_sdr_tpu.models.scenario import make_scenario  # noqa: E402
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth  # noqa: E402
-from gps_sdr_tpu.runtime.evaluator import Evaluator, process_many  # noqa: E402
-from gps_sdr_tpu.runtime.serving import StreamServer  # noqa: E402
+from gps_sdr.config import ReceiverConfig  # noqa: E402
+from gps_sdr.models.scenario import make_scenario  # noqa: E402
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth  # noqa: E402
+from gps_sdr.runtime.evaluator import Evaluator, process_many  # noqa: E402
+from gps_sdr.runtime.serving import StreamServer  # noqa: E402
 
 cfg = ReceiverConfig()
 n_chunks = int(round(args.sec / (cfg.no_sec * cfg.block_sec)))

@@ -1,11 +1,10 @@
 """Profile the HOST side of the full receiver loop (run_device ->
-unpack -> decoders -> evaluator).  Device work runs on whatever backend
-is selected; only the host functions' tottime matters — they are
-platform-independent and are the critical path of full_loop_rtf (the
-device tracking itself is ~3000x realtime, so at 43x the wall is almost
-entirely host consume).
+unpack -> decoders -> evaluator).  Device work runs on the backend JAX
+selects (JAX_PLATFORMS=cpu for a CPU run); only the host functions'
+tottime matters — they are platform-independent and bound
+full_loop_rtf whenever device tracking is far faster than realtime.
 
-Usage: python examples/profile_fullloop.py [--sec 24] [--tpu]
+Usage: python examples/profile_fullloop.py [--sec 24]
 """
 
 import argparse
@@ -18,26 +17,23 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gps_sdr_tpu.utils.profiling import enable_compile_cache  # noqa: E402
+from gps_sdr.utils.profiling import enable_compile_cache  # noqa: E402
 enable_compile_cache()
 
 p = argparse.ArgumentParser()
 p.add_argument("--sec", type=float, default=24.0)
-p.add_argument("--tpu", action="store_true")
 args = p.parse_args()
 
 import jax  # noqa: E402
-if not args.tpu:
-    jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from gps_sdr_tpu.config import ReceiverConfig  # noqa: E402
-from gps_sdr_tpu.models.scenario import make_scenario  # noqa: E402
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth  # noqa: E402
-from gps_sdr_tpu.runtime.evaluator import Evaluator  # noqa: E402
-from gps_sdr_tpu.runtime.receiver import Receiver  # noqa: E402
+from gps_sdr.config import ReceiverConfig  # noqa: E402
+from gps_sdr.models.scenario import make_scenario  # noqa: E402
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth  # noqa: E402
+from gps_sdr.runtime.evaluator import Evaluator  # noqa: E402
+from gps_sdr.runtime.receiver import Receiver  # noqa: E402
 
 cfg = ReceiverConfig()
 cfg = cfg.replace(download_windows_in_flight=2)

@@ -1,10 +1,11 @@
 """Profile the HOST side of StreamServer serving-with-fixes (the
 aggregate-RTF bench shape): S full receivers off one chip, one
-evaluator per stream.  The device tracking is ~3000x realtime, so the
-serving ceiling is the per-chunk host work x S — this shows where it
-goes.
+evaluator per stream.  When device tracking is far faster than
+realtime, the serving ceiling is the per-chunk host work x S — this
+shows where it goes.  Device work runs on the backend JAX selects
+(JAX_PLATFORMS=cpu for a CPU run).
 
-Usage: python examples/profile_serving.py [--sec 24] [--streams 8] [--tpu]
+Usage: python examples/profile_serving.py [--sec 24] [--streams 8]
 """
 
 import argparse
@@ -17,28 +18,24 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gps_sdr_tpu.utils.profiling import enable_compile_cache  # noqa: E402
+from gps_sdr.utils.profiling import enable_compile_cache  # noqa: E402
 enable_compile_cache()
 
 p = argparse.ArgumentParser()
 p.add_argument("--sec", type=float, default=24.0)
 p.add_argument("--streams", type=int, default=8)
-p.add_argument("--tpu", action="store_true")
 p.add_argument("--wif", type=int, default=2,
                help="download_windows_in_flight")
 args = p.parse_args()
 
 import jax  # noqa: E402
-if not args.tpu:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 
-from gps_sdr_tpu.config import ReceiverConfig  # noqa: E402
-from gps_sdr_tpu.models.scenario import make_scenario  # noqa: E402
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth  # noqa: E402
-from gps_sdr_tpu.runtime.evaluator import Evaluator  # noqa: E402
-from gps_sdr_tpu.runtime.serving import StreamServer  # noqa: E402
+from gps_sdr.config import ReceiverConfig  # noqa: E402
+from gps_sdr.models.scenario import make_scenario  # noqa: E402
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth  # noqa: E402
+from gps_sdr.runtime.evaluator import Evaluator  # noqa: E402
+from gps_sdr.runtime.serving import StreamServer  # noqa: E402
 
 cfg = ReceiverConfig().replace(download_windows_in_flight=args.wif,
                                chunks_per_download=16,
@@ -72,7 +69,7 @@ for _ in range(args.streams):          # warm: the first window
     s, epoch = next(it)
     evs[s].process(epoch)
 
-from gps_sdr_tpu.runtime.evaluator import process_many  # noqa: E402
+from gps_sdr.runtime.evaluator import process_many  # noqa: E402
 
 prof = cProfile.Profile()
 t0 = time.perf_counter()

@@ -9,8 +9,8 @@ shards in both stitch modes and reports, per shard count:
     (near-linear speedup for warmup W << local length L)
   * measured accuracy vs the sequential oracle (code-phase agreement,
     final carrier-freq delta, lock agreement)
-  * wall time on THIS host (virtual CPU mesh on one burstable core:
-    wall does NOT scale here — devices share the core; the work factor
+  * wall time on THIS host (virtual CPU mesh: wall does NOT scale
+    here — the virtual devices share the host's cores; the work factor
     is the hardware-independent scaling model, validated by the
     accuracy numbers)
 
@@ -24,7 +24,7 @@ rows report subframes decoded, fixes produced, fix error, and the
 per-epoch fix separation vs the sequential run.  The documented
 operating point is the smallest warmup with zero lost subframes.
 
-Writes SCALING_r03.json at the repo root.
+Writes chiprun_out/scaling.json (relative to the repo root).
 
 Usage: python examples/scaling_sweep.py [--blocks 64] [--warmup 4]
        [--skip-fix-parity]
@@ -59,17 +59,17 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from gps_sdr_tpu.utils.profiling import enable_compile_cache
+    from gps_sdr.utils.profiling import enable_compile_cache
     enable_compile_cache()
     import jax.numpy as jnp
 
-    from gps_sdr_tpu.config import ReceiverConfig
-    from gps_sdr_tpu.models.simulator import (SatSignal, random_bits,
-                                              synth_stream_chunk)
-    from gps_sdr_tpu.ops import cacode
-    from gps_sdr_tpu.ops.tracking import (init_channel_states,
-                                          reset_channel, track_chunk)
-    from gps_sdr_tpu.parallel import make_mesh, pad_channels, track_sharded
+    from gps_sdr.config import ReceiverConfig
+    from gps_sdr.models.simulator import (SatSignal, random_bits,
+                                          synth_stream_chunk)
+    from gps_sdr.ops import cacode
+    from gps_sdr.ops.tracking import (init_channel_states,
+                                      reset_channel, track_chunk)
+    from gps_sdr.parallel import make_mesh, pad_channels, track_sharded
 
     cfg = ReceiverConfig()
     rng = np.random.default_rng(0)
@@ -148,11 +148,11 @@ def main():
     # ---- phase 2: fix-level parity through the stitched path ----
     fix_rows = []
     if not args.skip_fix_parity:
-        from gps_sdr_tpu.models.navmsg import NavDecoder
-        from gps_sdr_tpu.models.scenario import make_scenario
-        from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-        from gps_sdr_tpu.ops.tracking import outs_to_numpy
-        from gps_sdr_tpu.runtime.evaluator import EpochInput, Evaluator
+        from gps_sdr.models.navmsg import NavDecoder
+        from gps_sdr.models.scenario import make_scenario
+        from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+        from gps_sdr.ops.tracking import outs_to_numpy
+        from gps_sdr.runtime.evaluator import EpochInput, Evaluator
 
         # multiple of 8 so every shard count divides the stream
         fix_blocks = (int(round(args.fix_sec / cfg.block_sec)) // 8) * 8
@@ -265,11 +265,11 @@ def main():
 
     doc = {
         "blocks": t, "channels": len(sats), "warmup_blocks": args.warmup,
-        "note": ("wall times are from ONE burstable CPU core hosting all "
+        "note": ("wall times are from the host CPU hosting all "
                  "8 virtual devices and do not reflect hardware scaling; "
                  "model_speedup = n_shards / work_scans_per_device is the "
                  "hardware-independent scaling, valid while the stitch "
-                 "ppermute (a few KB/channel over ICI) stays negligible "
+                 "ppermute (a few KB/channel between devices) stays negligible "
                  "next to the per-shard scan"),
         "rows": rows,
         "fix_parity": {
@@ -280,7 +280,8 @@ def main():
         },
     }
     out = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "SCALING_r03.json")
+        os.path.abspath(__file__))), "chiprun_out", "scaling.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump(doc, f, indent=1)
     print(f"wrote {out}")

@@ -3,8 +3,8 @@ with every stateful accuracy feature on and a mid-run checkpoint/resume
 (VERDICT r2 #7; serving dimension + fast synth added per VERDICT r4 #8).
 
 What this proves that unit tests cannot: the hi/lo long-counter
-machinery (ops/pallas_cheap.py ms_time planes, tracking.py prev_stream
-rebase) and the 20 ms bit framing survive millions of blocks without
+machinery (tracking.py ms_time / prev_stream hi-lo transport and
+checkpoint planes) and the 20 ms bit framing survive millions of blocks without
 desync, and the fix error stays flat from the first ten minutes to the
 last — through a checkpoint/resume boundary in the middle.
 
@@ -19,11 +19,11 @@ Two modes:
 The IQ is synthesized on-device chunk by chunk (DeviceScenarioSynth
 with knot_interp_step=0.1: exact light-time solves only at 0.1 s
 nodes, Catmull-Rom to the 1 ms knots — ~3e-15 s interp error, and the
-host parameterization that capped SOAK_r04 at RTF 3.2 drops ~6x).
+host parameterization cost drops ~6x).
 
 Usage: python examples/soak.py [--hours 2] [--k 16] [--streams 8]
                                [--cpu]
-Writes SOAK_r05.json at the repo root.
+Writes chiprun_out/soak.json (--out, relative to the repo root).
 """
 
 from __future__ import annotations
@@ -47,25 +47,24 @@ def main():
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--sats", type=int, default=8)
     ap.add_argument("--streams", type=int, default=1)
-    ap.add_argument("--out", default="SOAK_r05.json")
+    ap.add_argument("--out", default="chiprun_out/soak.json")
     args = ap.parse_args()
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from gps_sdr_tpu.utils.profiling import enable_compile_cache
+    from gps_sdr.utils.profiling import enable_compile_cache
     enable_compile_cache()
 
-    from gps_sdr_tpu.config import ReceiverConfig
-    from gps_sdr_tpu.models.scenario import make_scenario
-    from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-    from gps_sdr_tpu.runtime.checkpoint import (load_server,
-                                                load_session,
-                                                save_server,
-                                                save_session)
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.config import ReceiverConfig
+    from gps_sdr.models.scenario import make_scenario
+    from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+    from gps_sdr.runtime.checkpoint import (load_server,
+                                            load_session,
+                                            save_server,
+                                            save_session)
+    from gps_sdr.runtime.session import Session
 
-    on_tpu = jax.default_backend() == "tpu"
     cfg = ReceiverConfig(blocks_per_step=args.k,
                          carrier_smoothing=16,
                          track_filter_q=(0.5 if args.streams == 1
@@ -74,9 +73,7 @@ def main():
                          download_windows_in_flight=2,
                          chunks_per_download=16,
                          defer_subframe_poll=True,
-                         epoch_per_window=True,
-                         use_pallas_kernels=on_tpu,
-                         use_pallas_cheap=on_tpu)
+                         epoch_per_window=True)
     sig_sec = args.hours * 3600.0
     n_chunks = int(round(sig_sec / (cfg.no_sec * cfg.block_sec)))
     scn = make_scenario(cfg, n_sats=args.sats,
@@ -110,8 +107,8 @@ def main():
         evs = [s2.evaluator]
         states_list = [s2.receiver.states]
     else:
-        from gps_sdr_tpu.runtime.evaluator import Evaluator, process_many
-        from gps_sdr_tpu.runtime.serving import StreamServer
+        from gps_sdr.runtime.evaluator import Evaluator, process_many
+        from gps_sdr.runtime.serving import StreamServer
 
         def serve(srv, evs, prov, chunks):
             pend = []
@@ -137,7 +134,7 @@ def main():
 
     wall = time.time() - t_start
 
-    from gps_sdr_tpu.ops.tracking import summarize_states
+    from gps_sdr.ops.tracking import summarize_states
 
     per_stream = []
     ok_all = True
@@ -208,6 +205,7 @@ def main():
     }
     out = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), args.out)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as f:
         json.dump(doc, f, indent=1)
     print(json.dumps(doc), flush=True)

@@ -53,7 +53,7 @@ def parse_args():
     ap.add_argument("--chunk-sec", type=float, default=None,
                     help="on-device chunk length in seconds (default "
                          "~1 s, the reference's reporting cadence; "
-                         "raising it amortizes per-call link latency "
+                         "raising it amortizes per-call overhead "
                          "but coarsens the evaluation cadence — "
                          "accuracy is validated at the default)")
     ap.add_argument("--osc-ppm", type=float, default=0.0,
@@ -100,14 +100,14 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from gps_sdr_tpu.config import ReceiverConfig
-    from gps_sdr_tpu.models.scenario import (make_scenario,
-                                             synth_scenario_blocks)
-    from gps_sdr_tpu.utils.profiling import enable_compile_cache
+    from gps_sdr.config import ReceiverConfig
+    from gps_sdr.models.scenario import (make_scenario,
+                                         synth_scenario_blocks)
+    from gps_sdr.utils.profiling import enable_compile_cache
 
     enable_compile_cache()
-    from gps_sdr_tpu.runtime.session import Session
-    from gps_sdr_tpu.ui.headless import HeadlessReporter
+    from gps_sdr.runtime.session import Session
+    from gps_sdr.ui.headless import HeadlessReporter
 
     cfg = ReceiverConfig(carrier_smoothing=args.carrier_smoothing,
                          iono_corr=args.iono, tropo_corr=args.tropo,
@@ -117,7 +117,7 @@ def main():
         # an uncorrected TCXO shifts every Doppler by ~ -ppm*1575.42 Hz
         # in common: widen the search band around the shifted center and
         # solve the matching sample-clock skew in the fix
-        from gps_sdr_tpu.config import L1_FREQ
+        from gps_sdr.config import L1_FREQ
         f_off = -1e-6 * args.osc_ppm * L1_FREQ
         cfg = cfg.replace(min_freq=round(f_off - 5000., -2),
                           max_freq=round(f_off + 5000., -2),
@@ -157,10 +157,10 @@ def main():
     path = os.path.join(cache_dir, f"{key}.npy")
     t0 = time.time()
     if args.on_device:
-        from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
+        from gps_sdr.models.scenario_jax import DeviceScenarioSynth
         dev = DeviceScenarioSynth(scn, noise_std=args.noise)
         reporter = None if args.quiet else __import__(
-            "gps_sdr_tpu.ui.headless", fromlist=["HeadlessReporter"]
+            "gps_sdr.ui.headless", fromlist=["HeadlessReporter"]
         ).HeadlessReporter()
         session = Session(cfg, reporter=reporter)
         cb = cfg.no_sec if args.chunk_sec is None else max(
@@ -172,7 +172,7 @@ def main():
         _report(args, scn, session, wall)
         return
     if args.device_synth:
-        from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
+        from gps_sdr.models.scenario_jax import DeviceScenarioSynth
         dev = DeviceScenarioSynth(scn, noise_std=args.noise)
         chunks = []
         step = 4 * cfg.no_sec
@@ -226,7 +226,7 @@ def _report(args, scn, session, wall):
         return
     mean, dev, n, n_out = s["stat"]
     err = np.linalg.norm(mean - scn.rec_ecef)
-    from gps_sdr_tpu.utils.geodesy import ecef_to_geo
+    from gps_sdr.utils.geodesy import ecef_to_geo
     lat, lon, alt = ecef_to_geo(mean)
     print(f"mean position: {lat:.6f} deg, {lon:.6f} deg, {alt:.1f} m "
           f"(n={n})")
@@ -245,7 +245,7 @@ def _report(args, scn, session, wall):
 def _report_moving(args, scn, session):
     """Moving receiver: judge fixes against the true trajectory and
     the Doppler velocity series against the true velocity."""
-    from gps_sdr_tpu.utils.gpstime import gps_datetime
+    from gps_sdr.utils.gpstime import gps_datetime
 
     ev = session.evaluator
     rows = ev.filtered if ev.filtered else ev.positions

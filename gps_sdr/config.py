@@ -1,0 +1,295 @@
+"""Receiver configuration.
+
+Replacement for the reference's module of ~60 mutable globals
+(reference: src/gpsglob.py:1-134, star-imported everywhere).  Here the
+configuration is a frozen dataclass; runtime-mutable knobs of the
+reference (sweep trigger, height constraint) are explicit control inputs
+to the runtime instead of mutated globals.
+
+All numerical semantics (block size, thresholds, sweep grid, dtype
+policy) follow the reference so results are comparable.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+
+# -- GPS system constants (IS-GPS-200; reference: src/gpslib.py:14-21) -------
+WEEK_IN_SEC = 604800
+GPS_C = 2.99792458e8          # speed of light as defined for GPS, m/s
+GPS_PI = 3.1415926535898      # pi as defined for GPS
+OMEGA_EARTH = 7.292115147e-5  # WGS84 earth rotation rate, rad/s
+ROLLOVER = 2                  # GPS week rollover count (current era)
+LEAPSEC = 18                  # GPS-UTC offset in s
+
+# C/A code structure
+CA_CHIPS = 1023               # chips per C/A code period (1 ms)
+CA_CHIP_RATE = 1.023e6        # chips/s
+L1_FREQ = 1575.42e6           # Hz
+BIT_MS = 20                   # nav bit length in ms
+SUBFRAME_BITS = 300           # bits per subframe (6 s)
+WORD_BITS = 30
+
+
+@dataclass(frozen=True)
+class ReceiverConfig:
+    """Static receiver parameters.
+
+    Defaults mirror the reference configuration (src/gpsglob.py) at
+    N_CYC=32 so that replay results are directly comparable.
+    """
+
+    # -- system parameters (gpsglob.py:116-125) --
+    code_samples: int = 2048        # samples per interpolated C/A period
+    n_cyc: int = 32                 # code periods per processing block
+                                    # (32 -> 32 ms blocks; also 16, 8)
+
+    # -- acquisition / sweep grid (gpsglob.py:61-75) --
+    min_freq: float = -5000.0       # Hz, Doppler search lower bound
+    max_freq: float = +5000.0       # Hz, Doppler search upper bound
+    step_freq: float = 200.0        # Hz, Doppler search step
+    corr_avg: int = 8               # periods averaged for tracking corr
+    corr_min: float = 8.0           # peak threshold in sigmas
+    sweep_corr_avg: int = 4         # periods averaged during sweep
+    acq_noncoherent: int = 1        # sweep windows whose correlation
+                                    # MAGNITUDE is averaged before peak
+                                    # detection (1 = reference-exact;
+                                    # 8 uses the whole 32 ms block and
+                                    # buys ~4 dB of acquisition
+                                    # sensitivity — the reference's
+                                    # single 4 ms window is blind below
+                                    # its 8-sigma floor)
+
+    # -- channel policy (gpsglob.py:35-44) --
+    max_sat: int = 11               # max simultaneously tracked PRNs
+    min_sat: int = 4                # min sats for a position fix
+    prn_min: int = 2                # first PRN searched (SAT_ALL, gpsrecv.py:36)
+    prn_max: int = 32               # last PRN searched
+
+    # -- tracking loop (gpslib.py:1046-1048, 1226-1229) --
+    pll_gain_unlocked: float = 10.0
+    pll_gain_locked: float = 1.0
+    pll_lock_threshold: float = 0.1     # rad
+    pll_max_df_per_sec: float = 20.0    # Hz/s slew limit
+    pll_phase_jump: float = 2.0         # rad; unwrap step trigger
+    pll_offset_avg: int = 4             # means averaged for phase offset
+    min_corr_q: float = -0.9            # 60 s corr quality sweep trigger
+    edge_sigma: float = 3.0             # min edge amplitude in sigmas
+    corr_q_window_sec: int = 60         # CORRLST span in seconds
+
+    # -- positioning (gpsglob.py:46-59) --
+    pos_avg_in_sec: int = 1
+    min_out_dist: float = 500.0     # m, outlier gate
+    max_speed: float = 60.0         # m/s, outlier speed allowance
+    conf_height: bool = False       # use height constraint (3-sat mode)
+    height: float = 0.0             # m, GPS height for constraint
+    height_dev: float = 10.0        # m, std dev of height constraint
+    lsf_max_it: int = 15
+    max_residual: float = 1.0e-7
+    lsf_weight: bool = True
+    solve_clock_rate: bool = False  # estimate receiver-clock rate (sample
+                                    # -clock skew) as a 5th fix unknown;
+                                    # removes the elevation-correlated
+                                    # pseudorange bias of an uncorrected
+                                    # TCXO (no SDR_FREQCORR needed; the
+                                    # reference can't do this).  Needs
+                                    # >= 5 sats per epoch (auto-falls
+                                    # back below that).
+    carrier_smoothing: int = 0      # Hatch-filter window (blocks; 0 =
+                                    # off): smooth code phases with the
+                                    # tracked carrier's integrated
+                                    # Doppler (code Doppler = f/1540
+                                    # chips/s), averaging code noise
+                                    # over ~N blocks with zero lag on
+                                    # real dynamics.  Another accuracy
+                                    # capability the reference lacks
+                                    # (models/pseudorange.py _hatch)
+    iono_corr: bool = False         # correct pseudoranges with the
+                                    # Klobuchar model driven by the
+                                    # subframe-4 page-18 coefficients
+                                    # (models/atmosphere.py).  The
+                                    # reference decodes no SF4/5 pages
+                                    # and models no atmosphere — its
+                                    # README attributes systematic
+                                    # errors >20 m to this omission
+    tropo_corr: bool = False        # correct pseudoranges with the
+                                    # Saastamoinen troposphere model
+                                    # (needs no broadcast data)
+    almanac_resweep_sec: float = 0.0
+                                    # > 0: periodic almanac-warmed
+                                    # channel maintenance — every N s
+                                    # the session re-arms the sweep
+                                    # from the collected/cached almanac
+                                    # (predicted-visible PRNs over a
+                                    # narrowed Doppler grid) so setting
+                                    # satellites hand over to risers
+                                    # without a full-band sweep.  The
+                                    # reference re-sweeps the full grid
+                                    # only on signal loss or a GUI
+                                    # button (gpsrecv.py:423-440)
+    raim: bool = False              # RAIM fault detection & exclusion:
+                                    # chi-square test on the weighted
+                                    # fix residuals; on failure, the
+                                    # satellite whose exclusion repairs
+                                    # the fix is barred for
+                                    # raim_exclude_sec.  The reference
+                                    # only gates whole fixes
+                                    # (MAX_RESIDUAL) — it cannot name
+                                    # or remove a faulty satellite
+    raim_threshold: float = 10.0    # normalized SSE/dof trip level
+    raim_exclude_sec: float = 60.0  # exclusion duration
+    raim_sigma_floor: float = 2.0   # m; floor on the per-satellite
+                                    # sigma in the RAIM statistic —
+                                    # carrier-smoothed sigmas reach
+                                    # ~5 cm and would read benign
+                                    # systematics (filter convergence,
+                                    # quantization, ~1-2 m) as faults
+    track_filter_q: float = 0.0     # > 0 enables the position/velocity
+                                    # Kalman track filter with this
+                                    # white-acceleration process noise
+                                    # [m/s^2] (runtime/trackfilter.py):
+                                    # fuses GN fixes (measured (J'WJ)^-1
+                                    # covariance) with the Doppler
+                                    # velocity solves.  ~0.5 walking,
+                                    # ~3 driving; the reference only
+                                    # has a running mean (static-only)
+
+    # -- front end --
+    sample_rate_factor: int = 1000  # sample_rate = 1000 * code_samples
+    sdr_freq_corr_ppm: float = 0.0  # oscillator correction, ppm
+    cw_excision: float = 0.0        # > 0 enables frequency-domain
+                                    # narrowband-interference excision
+                                    # on every tracking/acquisition
+                                    # block (ops/frontend.py
+                                    # excise_cw_block): bins above
+                                    # cw_excision * mean|X| are nulled.
+                                    # ~12 is a good threshold (clean
+                                    # GPS block spectra stay below
+                                    # ~8x mean; a PLL-capturing tone
+                                    # sits orders of magnitude above).
+                                    # 0 = off (reference-exact; the
+                                    # reference has no RFI defense)
+
+    # -- device scheduling --
+    blocks_per_step: int = 8        # tracking blocks fused per scan step
+                                    # (1 = per-block PLL exactly like the
+                                    # reference; >1 freezes the mixer NCO
+                                    # within a step and applies PLL phase
+                                    # corrections as rotations on the
+                                    # per-ms means -- amortizes per-step
+                                    # overhead, see ops/tracking.py.
+                                    # K<=8 is validated bit-equivalent to
+                                    # the sequential loop and is the
+                                    # production default; non-divisible
+                                    # chunk tails fall back to a
+                                    # sequential tail scan automatically)
+
+    # -- device->host transport (run_device streaming) --
+    chunks_per_download: int = 8    # chunks whose packed outputs are
+                                    # downloaded in ONE device->host
+                                    # transfer; the fixed per-transfer
+                                    # cost is paid once per batch.  Channel
+                                    # sweeps consequently take effect up
+                                    # to this many chunks later (vs one
+                                    # chunk at 1; the reference's sweep
+                                    # latency is ~5 blocks, gpsglob.py:41)
+    edge_rate_cap: int = 64         # downloaded bit-edge capacity per
+                                    # second per channel (true rate is
+                                    # <= 50/s at the 20 ms bit length;
+                                    # overflow drops extras and counts
+                                    # in ReceiverStatus.edge_overflows)
+    download_windows_in_flight: int = 1
+                                    # download windows dispatched ahead:
+                                    # at 2, the host downloads/consumes
+                                    # window k while the device computes
+                                    # window k+1 (throughput mode; adds
+                                    # one window of result latency).
+                                    # Identical outputs either way.
+    fused_window_dispatch: bool = True
+                                    # run a whole download window (w
+                                    # chunks) as ONE device program
+                                    # (track + pack scanned in-jit,
+                                    # ops/tracking.py track_window):
+                                    # the per-chunk dispatch cost is
+                                    # paid once per window.
+                                    # Identical outputs; False keeps
+                                    # the per-chunk dispatch loop.
+    defer_subframe_poll: bool = False
+                                    # windowed device loops only: poll
+                                    # nav decoders for subframes once
+                                    # per download window instead of
+                                    # every chunk (throughput mode; the
+                                    # decoded subframes land in the
+                                    # window's LAST epoch, adding up to
+                                    # one window of subframe latency —
+                                    # pair with evaluator.merge_epochs,
+                                    # which feeds the whole window in
+                                    # one call, making results match
+                                    # per-chunk polling)
+    epoch_per_window: bool = False  # windowed device loops only: yield
+                                    # ONE EpochInput per download window
+                                    # (the concatenated chunk outputs
+                                    # consumed in a single host pass) —
+                                    # equals merge_epochs over the
+                                    # window's per-chunk epochs with
+                                    # defer_subframe_poll, at a fraction
+                                    # of the per-chunk host overhead.
+                                    # Throughput serving mode; the
+                                    # latency path keeps per-chunk
+                                    # epochs
+
+    # -- derived --
+    @property
+    def sample_rate(self) -> float:
+        """Samples per second (2.048 MS/s at defaults)."""
+        return float(self.sample_rate_factor * self.code_samples)
+
+    @property
+    def ngps(self) -> int:
+        """Samples per processing block (NGPS; gpsglob.py:125)."""
+        return self.n_cyc * self.code_samples
+
+    @property
+    def block_sec(self) -> float:
+        return self.ngps / self.sample_rate
+
+    @property
+    def no_sec(self) -> int:
+        """Blocks per ~1 s reporting interval (gpslib.py:1067)."""
+        return 1024 // self.n_cyc
+
+    @property
+    def corr_hist_len(self) -> int:
+        """Entries in the correlation-quality history (gpslib.py:1086)."""
+        return self.corr_q_window_sec * self.no_sec
+
+    @property
+    def n_doppler(self) -> int:
+        """Number of Doppler bins in the acquisition grid."""
+        return int(round((self.max_freq - self.min_freq) / self.step_freq)) + 1
+
+    @property
+    def doppler_bins(self) -> np.ndarray:
+        return (self.min_freq
+                + self.step_freq * np.arange(self.n_doppler)).astype(np.float64)
+
+    @property
+    def prns(self) -> tuple[int, ...]:
+        """PRNs searched during cold-start acquisition."""
+        return tuple(range(self.prn_min, self.prn_max + 1))
+
+    def replace(self, **kw) -> "ReceiverConfig":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT = ReceiverConfig()
+
+
+# -- dtype policy (gpsglob.py:127-131: float32 DSP ~1.4x faster; orbit/PVT
+#    math deliberately stays float64 in the reference) --------------------
+DSP_FLOAT = np.float32
+DSP_COMPLEX = np.complex64
+GEO_FLOAT = np.float64

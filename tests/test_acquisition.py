@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from gps_sdr_tpu.config import DEFAULT as CFG
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.acquisition import acquire_all
-from gps_sdr_tpu.models.simulator import SatSignal, synth_stream
+from gps_sdr.config import DEFAULT as CFG
+from gps_sdr.ops import cacode
+from gps_sdr.ops.acquisition import acquire_all
+from gps_sdr.models.simulator import SatSignal, synth_stream
 
 
 def test_acquire_multi_sat():
@@ -48,9 +48,9 @@ def test_noncoherent_acquisition_gains_sensitivity():
     single-window detection must clear the same 8-sigma floor, at the
     right Doppler and code phase.  k=1 stays reference-exact (covered
     by the tests above)."""
-    from gps_sdr_tpu.ops.acquisition import acquire
+    from gps_sdr.ops.acquisition import acquire
     import jax.numpy as jnp
-    from gps_sdr_tpu.ops.tracking import to_f32_pairs
+    from gps_sdr.ops.tracking import to_f32_pairs
 
     ffts = cacode.ca_fft_table(CFG)
     cfg8 = CFG.replace(acq_noncoherent=8)

@@ -16,11 +16,11 @@ import os
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.runtime.evaluator import EpochInput
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-from gps_sdr_tpu.runtime.sources import pack_iq, replay_blocks
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.runtime.evaluator import EpochInput
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+from gps_sdr.runtime.sources import pack_iq, replay_blocks
 from tests.conftest import _SYNTH_CACHE
 
 SEC = 30.0
@@ -54,7 +54,7 @@ def _capture_path():
 
 @pytest.fixture(scope="module")
 def replayed():
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     path = _capture_path()
     scn = _scenario()
@@ -64,7 +64,7 @@ def replayed():
 
 
 def test_corrected_fix_beats_uncorrected(replayed):
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     scn, session, summary = replayed
     ev = session.evaluator
@@ -91,9 +91,9 @@ def test_almanac_maintenance_resweeps(replayed):
     the session periodically re-arms the cold sweep from the almanac
     prediction (narrowed grid) — channels stay locked and fixes keep
     flowing through the maintenance sweeps."""
-    from gps_sdr_tpu.models.almanac import almanac_from_ephem
-    from gps_sdr_tpu.runtime.session import Session
-    from gps_sdr_tpu.utils.io import save_almanac
+    from gps_sdr.models.almanac import almanac_from_ephem
+    from gps_sdr.runtime.session import Session
+    from gps_sdr.utils.io import save_almanac
 
     scn, session, summary = replayed
     alm_path = os.path.join(_SYNTH_CACHE, "atmos_almanac.json")
@@ -117,7 +117,7 @@ def test_preloaded_iono_corrects_from_first_fix(replayed):
     receivers cache the coefficients).  With the coefficients preloaded
     — the cache warm start, like preloaded ephemerides — every fix from
     the very first one carries the full correction."""
-    from gps_sdr_tpu.runtime.evaluator import Evaluator
+    from gps_sdr.runtime.evaluator import Evaluator
 
     scn, session, summary = replayed
     ev = Evaluator(CFG, iono_params={"alpha": scn.iono_alpha,

@@ -11,16 +11,16 @@ almanac-page decode driving visible-satellite prediction.
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import GPS_C, L1_FREQ, ReceiverConfig
-from gps_sdr_tpu.models import navmsg
-from gps_sdr_tpu.models.almanac import (almanac_from_ephem,
-                                        ephem_from_almanac,
-                                        predict_visible)
-from gps_sdr_tpu.models.atmosphere import (azim_elev_batch,
-                                           klobuchar_delay, tropo_delay)
-from gps_sdr_tpu.models.scenario import (DEFAULT_IONO_ALPHA,
-                                         DEFAULT_IONO_BETA,
-                                         make_scenario)
+from gps_sdr.config import GPS_C, L1_FREQ, ReceiverConfig
+from gps_sdr.models import navmsg
+from gps_sdr.models.almanac import (almanac_from_ephem,
+                                    ephem_from_almanac,
+                                    predict_visible)
+from gps_sdr.models.atmosphere import (azim_elev_batch,
+                                       klobuchar_delay, tropo_delay)
+from gps_sdr.models.scenario import (DEFAULT_IONO_ALPHA,
+                                     DEFAULT_IONO_BETA,
+                                     make_scenario)
 
 CFG = ReceiverConfig()
 LAT, LON = np.deg2rad(49.08), np.deg2rad(8.31)
@@ -79,7 +79,7 @@ def test_scenario_injection_matches_evaluator_correction():
         scn.model_tropo = True
         injected = tau_on - tau_off
 
-        from gps_sdr_tpu.models import orbits
+        from gps_sdr.models import orbits
         x, y, z, _ = orbits.ecef_coord(
             scn.tow0, sat.eph,
             dt_from_tow=t - orbits.tsv_of_tow(scn.tow0))
@@ -159,8 +159,8 @@ def test_almanac_warm_start_acquisition():
     the cold sweep to the predicted-visible PRNs over a narrowed
     Doppler grid, and still acquires every satellite.  The reference
     always sweeps all 31 PRNs x the full band."""
-    from gps_sdr_tpu.models.scenario import synth_scenario_blocks
-    from gps_sdr_tpu.runtime.receiver import Receiver
+    from gps_sdr.models.scenario import synth_scenario_blocks
+    from gps_sdr.runtime.receiver import Receiver
     from tests.conftest import cached_synth
 
     scn = make_scenario(CFG, n_sats=6, duration_sec=8.0, seed=13)
@@ -190,7 +190,7 @@ def test_almanac_warm_start_acquisition():
 
 
 def test_almanac_cache_roundtrip(tmp_path):
-    from gps_sdr_tpu.utils.io import load_almanac, save_almanac
+    from gps_sdr.utils.io import load_almanac, save_almanac
 
     scn = make_scenario(CFG, n_sats=3, duration_sec=12.0, seed=4)
     alms = {s.prn: almanac_from_ephem(s.eph) for s in scn.sats}
@@ -209,9 +209,9 @@ def test_almanac_cache_roundtrip(tmp_path):
 def test_session_warm_start_plumbing(tmp_path):
     """Session + CLI: the almanac cache preloads the evaluator (iono
     coefficients included) and --warm-start arms the receiver sweep."""
-    from gps_sdr_tpu.cli import _arm_warm_start
-    from gps_sdr_tpu.runtime.session import Session
-    from gps_sdr_tpu.utils.io import save_almanac
+    from gps_sdr.cli import _arm_warm_start
+    from gps_sdr.runtime.session import Session
+    from gps_sdr.utils.io import save_almanac
 
     scn = make_scenario(CFG, n_sats=5, duration_sec=12.0, seed=9,
                         iono=True)
@@ -232,7 +232,7 @@ def test_almanac_orbit_accuracy():
     """Almanac-propagated position within a few km of the precise
     ephemeris (IS-GPS-200 quotes ~1-2 km typical almanac error; ours
     drops only the harmonic terms + deltaN/IDOT and quantizes)."""
-    from gps_sdr_tpu.models import orbits
+    from gps_sdr.models import orbits
     scn = make_scenario(CFG, n_sats=3, duration_sec=12.0, seed=11)
     for s in scn.sats:
         alm = almanac_from_ephem(s.eph)

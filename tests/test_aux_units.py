@@ -7,17 +7,17 @@ import datetime
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.almanac import (acquisition_hints,
-                                        almanac_from_ephem,
-                                        predict_visible)
-from gps_sdr_tpu.models.atmosphere import klobuchar_delay, tropo_delay
-from gps_sdr_tpu.models.scenario import (DEFAULT_IONO_ALPHA,
-                                         DEFAULT_IONO_BETA,
-                                         make_scenario)
-from gps_sdr_tpu.runtime.trackfilter import TrackFilter
-from gps_sdr_tpu.utils.geodesy import enu_to_ecef_vec, geo_to_ecef
-from gps_sdr_tpu.utils.gpstime import gps_datetime, gps_week_tow
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.almanac import (acquisition_hints,
+                                    almanac_from_ephem,
+                                    predict_visible)
+from gps_sdr.models.atmosphere import klobuchar_delay, tropo_delay
+from gps_sdr.models.scenario import (DEFAULT_IONO_ALPHA,
+                                     DEFAULT_IONO_BETA,
+                                     make_scenario)
+from gps_sdr.runtime.trackfilter import TrackFilter
+from gps_sdr.utils.geodesy import enu_to_ecef_vec, geo_to_ecef
+from gps_sdr.utils.gpstime import gps_datetime, gps_week_tow
 
 CFG = ReceiverConfig()
 
@@ -65,8 +65,8 @@ def test_acquisition_hints_refuses_thin_prediction():
 
 
 def test_raim_exclusion_expires():
-    from gps_sdr_tpu.models.pseudorange import SatRows
-    from gps_sdr_tpu.runtime.evaluator import Evaluator
+    from gps_sdr.models.pseudorange import SatRows
+    from gps_sdr.runtime.evaluator import Evaluator
 
     cfg = ReceiverConfig(raim=True, raim_exclude_sec=10.0)
     ev = Evaluator(cfg)
@@ -121,8 +121,8 @@ def test_dop_reported_and_matches_geometry():
     """One pipeline fix interval must report GDOP/PDOP/HDOP/VDOP
     consistent with the constellation geometry (seed 35 was measured
     at GDOP 3.2 when picking scenario seeds)."""
-    from gps_sdr_tpu.runtime.session import Session
-    from gps_sdr_tpu.runtime.sources import replay_blocks
+    from gps_sdr.runtime.session import Session
+    from gps_sdr.runtime.sources import replay_blocks
     from tests.test_raim import _capture_path
 
     cfg = ReceiverConfig()

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import DEFAULT
-from gps_sdr_tpu.ops import cacode
+from gps_sdr.config import DEFAULT
+from gps_sdr.ops import cacode
 
 # First-10-chip octals, IS-GPS-200 table 3-I (PRN 34 == PRN 37).
 FIRST10_OCTAL = {

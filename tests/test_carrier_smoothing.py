@@ -13,10 +13,10 @@ noise over N blocks with zero lag on real dynamics.  Pinned here:
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import DEFAULT as CFG
-from gps_sdr_tpu.config import L1_FREQ, ReceiverConfig
-from gps_sdr_tpu.models.pseudorange import PseudorangeEngine
-from gps_sdr_tpu.runtime.evaluator import EpochInput, Evaluator
+from gps_sdr.config import DEFAULT as CFG
+from gps_sdr.config import L1_FREQ, ReceiverConfig
+from gps_sdr.models.pseudorange import PseudorangeEngine
+from gps_sdr.runtime.evaluator import EpochInput, Evaluator
 from tests.test_pipeline import ideal_measurements, make_scenario
 
 
@@ -147,9 +147,9 @@ def test_device_path_ships_carrier_freqs():
     """run_device with carrier_smoothing > 0 ships per-block freqs in
     the compact transport (3rd blocky column) and emits them aligned
     1:1 with the code phases."""
-    from gps_sdr_tpu.models.sim_jax import JaxSynth
-    from gps_sdr_tpu.models.simulator import SatSignal, random_bits
-    from gps_sdr_tpu.runtime.receiver import Receiver
+    from gps_sdr.models.sim_jax import JaxSynth
+    from gps_sdr.models.simulator import SatSignal, random_bits
+    from gps_sdr.runtime.receiver import Receiver
 
     cfg = ReceiverConfig(code_samples=256, n_cyc=8, corr_avg=4,
                          sweep_corr_avg=2, blocks_per_step=4,

@@ -8,9 +8,9 @@ one rising; a requested sweep must swap the channel set accordingly."""
 
 import numpy as np
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.runtime.receiver import Receiver
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.runtime.receiver import Receiver
 from tests.conftest import cached_synth
 
 CFG = ReceiverConfig(max_sat=2, corr_q_window_sec=2)

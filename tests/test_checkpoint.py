@@ -10,12 +10,12 @@ import itertools
 import numpy as np
 import jax.numpy as jnp
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops.tracking import (init_channel_states, pack_states,
-                                      reset_channel, unpack_states)
-from gps_sdr_tpu.runtime.checkpoint import load_session, save_session
-from gps_sdr_tpu.runtime.session import Session
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops.tracking import (init_channel_states, pack_states,
+                                  reset_channel, unpack_states)
+from gps_sdr.runtime.checkpoint import load_session, save_session
+from gps_sdr.runtime.session import Session
 from tests.conftest import cached_synth
 
 CFG = ReceiverConfig(max_sat=2)
@@ -99,7 +99,7 @@ def test_cli_save_and_resume(tmp_path):
     import subprocess
     import sys
 
-    from gps_sdr_tpu.runtime.sources import pack_iq
+    from gps_sdr.runtime.sources import pack_iq
 
     cfg = ReceiverConfig()
     sat = SatSignal(prn=9, doppler=1500.0, code_delay=100.0,
@@ -114,7 +114,7 @@ def test_cli_save_and_resume(tmp_path):
 
     def run(args):
         return subprocess.run(
-            [sys.executable, "-m", "gps_sdr_tpu", *args],
+            [sys.executable, "-m", "gps_sdr", *args],
             capture_output=True, text=True, timeout=300,
             env={"PATH": "/usr/bin:/bin", "HOME": "/root",
                  "JAX_PLATFORMS": "cpu", "PYTHONPATH": "."},
@@ -143,7 +143,7 @@ def test_resume_with_full_feature_state(tmp_path):
     show as a jump in the filtered track)."""
     import numpy as np
 
-    from gps_sdr_tpu.runtime.sources import replay_blocks
+    from gps_sdr.runtime.sources import replay_blocks
     from tests.test_atmos_closed_loop import CFG as ACFG
     from tests.test_atmos_closed_loop import _capture_path
 
@@ -191,9 +191,9 @@ def test_device_path_resume_continues_fixes(tmp_path):
     later code phase (found by the 2 h soak: exactly half the fixes)."""
     import numpy as np
 
-    from gps_sdr_tpu.models.scenario import make_scenario
-    from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.models.scenario import make_scenario
+    from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+    from gps_sdr.runtime.session import Session
 
     cfg = ReceiverConfig(download_windows_in_flight=2,
                          chunks_per_download=4,
@@ -235,9 +235,9 @@ def test_server_checkpoint_resume_matches_uninterrupted(tmp_path):
     per stream as an uninterrupted run on the same capture."""
     import jax
 
-    from gps_sdr_tpu.ops.tracking import to_grouped_planar
-    from gps_sdr_tpu.runtime.checkpoint import load_server, save_server
-    from gps_sdr_tpu.runtime.serving import StreamServer
+    from gps_sdr.ops.tracking import to_grouped_planar
+    from gps_sdr.runtime.checkpoint import load_server, save_server
+    from gps_sdr.runtime.serving import StreamServer
 
     blocks = np.stack(_stream())
     cfg = CFG.replace(chunks_per_download=2,

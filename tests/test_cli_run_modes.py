@@ -7,15 +7,15 @@ import sys
 
 import numpy as np
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.runtime.sources import pack_iq
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.runtime.sources import pack_iq
 from tests.conftest import cached_synth
 
 
 def _run(args, timeout=300):
     return subprocess.run(
-        [sys.executable, "-m", "gps_sdr_tpu", *args],
+        [sys.executable, "-m", "gps_sdr", *args],
         capture_output=True, text=True, timeout=timeout,
         env={"PATH": "/usr/bin:/bin", "HOME": "/root",
              "JAX_PLATFORMS": "cpu",
@@ -49,7 +49,7 @@ def test_cli_synth_mode(tmp_path):
               str(tmp_path / "rec.pickle")], timeout=420)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "no position fix" in r.stdout
-    from gps_sdr_tpu.utils.io import load_epoch_records
+    from gps_sdr.utils.io import load_epoch_records
     recs = load_epoch_records(str(tmp_path / "rec.pickle"))
     assert len(recs) >= 2
     # epochs carry code phases for the synthesized satellites

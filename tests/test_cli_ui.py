@@ -11,12 +11,12 @@ import matplotlib
 
 matplotlib.use("Agg")
 
-from gps_sdr_tpu.config import DEFAULT as CFG
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.runtime.evaluator import EpochInput
-from gps_sdr_tpu.runtime.transport import (EpochReceiver, EpochSender,
-                                           _split_epoch)
-from gps_sdr_tpu.utils import io
+from gps_sdr.config import DEFAULT as CFG
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.runtime.evaluator import EpochInput
+from gps_sdr.runtime.transport import (EpochReceiver, EpochSender,
+                                       _split_epoch)
+from gps_sdr.utils import io
 from tests.test_pipeline import ideal_measurements
 
 
@@ -43,7 +43,7 @@ def test_cli_epochs_replay(tmp_path, epoch_records):
     rec_path = tmp_path / "epochs.pickle"
     io.save_epoch_records(str(rec_path), records)
 
-    from gps_sdr_tpu.cli import main
+    from gps_sdr.cli import main
     out = tmp_path / "run"
     rc = main(["epochs", str(rec_path), "--ui", "none",
                "--out", str(out), "--save-track", "--save-map"])
@@ -63,7 +63,7 @@ def test_cli_ephem_cache_roundtrip(tmp_path, epoch_records):
     io.save_epoch_records(str(rec_path), records)
     cache = tmp_path / "eph.json"
 
-    from gps_sdr_tpu.cli import main
+    from gps_sdr.cli import main
     assert main(["epochs", str(rec_path), "--ui", "none",
                  "--ephem-cache", str(cache)]) == 0
     loaded = io.load_ephemerides(str(cache))
@@ -118,8 +118,8 @@ def test_transport_split_large_epoch():
 
 def test_plot_ui_renders(tmp_path, epoch_records):
     scn, records = epoch_records
-    from gps_sdr_tpu.runtime.evaluator import Evaluator
-    from gps_sdr_tpu.ui.plot import PlotUI
+    from gps_sdr.runtime.evaluator import Evaluator
+    from gps_sdr.ui.plot import PlotUI
 
     ev = Evaluator(CFG)
     ui = PlotUI(interactive=False)
@@ -138,7 +138,7 @@ def test_plot_ui_renders(tmp_path, epoch_records):
 def test_cli_solve_clock_rate_flag():
     """--solve-clock-rate must reach ReceiverConfig (the reference's
     SDR_FREQCORR replacement, gpsglob.py:30 / README.md:204-217)."""
-    from gps_sdr_tpu.cli import build_parser, make_config
+    from gps_sdr.cli import build_parser, make_config
 
     ap = build_parser()
     args = ap.parse_args(["synth", "--solve-clock-rate"])

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gps_sdr_tpu.config import DEFAULT as CFG
-from gps_sdr_tpu.ops import cacode, dsp
+from gps_sdr.config import DEFAULT as CFG
+from gps_sdr.ops import cacode, dsp
 
 
 def test_doppler_mix_removes_tone():

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gps_sdr_tpu.ops.tracking import _edge_scan, _edge_scan_seq
+from gps_sdr.ops.tracking import _edge_scan, _edge_scan_seq
 
 SL = 33
 

@@ -9,8 +9,8 @@ random walks with injected wraps, gaps, and phase-error steps.
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.runtime.evaluator import unwrap_code_phases
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.runtime.evaluator import unwrap_code_phases
 
 
 def _unwrap_loop(cplst, err_stream, prev_tail, cfg, log=None):

@@ -1,20 +1,20 @@
 """Capture-format roundtrip and N_CYC=16/8 epoch configurations.
 
 The reference supports 32/16/8 ms processing blocks (gpsglob.py:122-124)
-and 8-bit packed captures (gpsrecv.py:168-172); both paths must work in
-the TPU build."""
+and 8-bit packed captures (gpsrecv.py:168-172); both paths must work
+here too."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.acquisition import acquire_all
-from gps_sdr_tpu.ops.tracking import (init_channel_states, outs_to_numpy,
-                                      reset_channel, track_chunk)
-from gps_sdr_tpu.runtime.sources import pack_iq, replay_blocks, unpack_iq
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.acquisition import acquire_all
+from gps_sdr.ops.tracking import (init_channel_states, outs_to_numpy,
+                                  reset_channel, track_chunk)
+from gps_sdr.runtime.sources import pack_iq, replay_blocks, unpack_iq
 from tests.conftest import cached_synth
 
 SAT = SatSignal(prn=13, doppler=-2100.0, code_delay=512.0,

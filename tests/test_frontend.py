@@ -10,12 +10,12 @@ acquisition + tracking chain.
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.acquisition import acquire_all
-from gps_sdr_tpu.ops.frontend import (Frontend, decimation_taps,
-                                      design_lowpass, frontend_blocks)
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.acquisition import acquire_all
+from gps_sdr.ops.frontend import (Frontend, decimation_taps,
+                                  design_lowpass, frontend_blocks)
 
 CFG = ReceiverConfig()          # 2.048 MS/s output chain
 FACTOR = 4
@@ -121,8 +121,8 @@ def test_high_rate_capture_through_decimator_acquires():
 def test_high_rate_capture_tracks_and_locks():
     """~2.6 s of decimated high-rate capture through the full Receiver:
     channels activate from the cold sweep and reach carrier lock."""
-    from gps_sdr_tpu.ops.tracking import summarize_states
-    from gps_sdr_tpu.runtime.receiver import Receiver
+    from gps_sdr.ops.tracking import summarize_states
+    from gps_sdr.runtime.receiver import Receiver
 
     sats = _hi_rate_sats()
     n_blocks = 82
@@ -149,8 +149,8 @@ def test_replay_decimated_file_roundtrip(tmp_path):
     """High-rate captures on disk (both formats) replay through
     runtime/sources.replay_decimated into standard blocks that match
     the in-memory frontend path."""
-    from gps_sdr_tpu.ops.frontend import Frontend
-    from gps_sdr_tpu.runtime.sources import pack_iq, replay_decimated
+    from gps_sdr.ops.frontend import Frontend
+    from gps_sdr.runtime.sources import pack_iq, replay_decimated
 
     sats = _hi_rate_sats()
     hi = synth_stream(CFG_HI, sats, n_blocks=2, noise_std=0.3,
@@ -163,7 +163,7 @@ def test_replay_decimated_file_roundtrip(tmp_path):
     blocks = list(replay_decimated(p_iq, CFG, fs_in))
     assert len(blocks) == 2 and blocks[0].shape == (CFG.ngps,)
     fe = Frontend(4)
-    from gps_sdr_tpu.runtime.sources import unpack_iq
+    from gps_sdr.runtime.sources import unpack_iq
     want = fe.feed(unpack_iq(np.fromfile(p_iq, np.uint16)))
     assert np.array_equal(np.concatenate(blocks),
                           want[:2 * CFG.ngps])

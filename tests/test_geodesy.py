@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from gps_sdr_tpu.utils import geodesy, gpstime
+from gps_sdr.utils import geodesy, gpstime
 
 
 def test_geo_ecef_roundtrip():

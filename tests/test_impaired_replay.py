@@ -29,10 +29,10 @@ import os
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import L1_FREQ, ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-from gps_sdr_tpu.runtime.sources import pack_iq, replay_blocks
+from gps_sdr.config import L1_FREQ, ReceiverConfig
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+from gps_sdr.runtime.sources import pack_iq, replay_blocks
 from tests.conftest import _SYNTH_CACHE
 
 SEC = 40.0
@@ -79,7 +79,7 @@ def _capture_path():
 
 @pytest.fixture(scope="module")
 def replayed():
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     path = _capture_path()
     scn = _scenario()
@@ -102,7 +102,7 @@ def test_drift_feed_forward_tracked_the_ramp(replayed):
     """Locked channels' carrier must sit on true Doppler + the common
     oscillator ramp at end of run — the PLL followed ~2.6 Hz/s for
     40 s (~104 Hz of ramp) without losing lock."""
-    from gps_sdr_tpu.ops.tracking import summarize_states
+    from gps_sdr.ops.tracking import summarize_states
 
     scn, session, summary = replayed
     rec = session.receiver

@@ -50,11 +50,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gps_sdr_tpu.config import GPS_C, ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.tracking import (init_channel_states, outs_to_numpy,
-                                      reset_channel, track_chunk)
+from gps_sdr.config import GPS_C, ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.tracking import (init_channel_states, outs_to_numpy,
+                                  reset_channel, track_chunk)
 from tests.conftest import _SYNTH_CACHE
 
 BITS = random_bits(128, seed=17)
@@ -176,7 +176,7 @@ MP_CFG = ReceiverConfig(cw_excision=12.0)
 
 
 def _mp_scenario():
-    from gps_sdr_tpu.models.scenario import make_scenario
+    from gps_sdr.models.scenario import make_scenario
 
     scn = make_scenario(MP_CFG, n_sats=8, duration_sec=SEC + 12.0, seed=2,
                         cw=((1500.0, 10.0, 0.4),))
@@ -188,8 +188,8 @@ def _mp_scenario():
 
 
 def _mp_capture_path():
-    from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-    from gps_sdr_tpu.runtime.sources import pack_iq
+    from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+    from gps_sdr.runtime.sources import pack_iq
 
     os.makedirs(_SYNTH_CACHE, exist_ok=True)
     path = os.path.join(_SYNTH_CACHE, "mp_cw_capture_v1.bin")
@@ -214,10 +214,10 @@ def test_multipath_cw_closed_loop():
     fixes (measured); with it, the result equals the tone-free run:
     every PRN tracked on its true Doppler, subframes decoded, fixes at
     the multipath-physics floor (~36 m at 2.048 MS/s)."""
-    from gps_sdr_tpu.config import L1_FREQ
-    from gps_sdr_tpu.ops.tracking import summarize_states
-    from gps_sdr_tpu.runtime.session import Session
-    from gps_sdr_tpu.runtime.sources import replay_blocks
+    from gps_sdr.config import L1_FREQ
+    from gps_sdr.ops.tracking import summarize_states
+    from gps_sdr.runtime.session import Session
+    from gps_sdr.runtime.sources import replay_blocks
 
     scn = _mp_scenario()
     path = _mp_capture_path()

@@ -7,10 +7,10 @@ must be bit-identical to the numpy fallback."""
 import numpy as np
 import pytest
 
-native = pytest.importorskip("gps_sdr_tpu.runtime._native")
+native = pytest.importorskip("gps_sdr.runtime._native")
 
-from gps_sdr_tpu.runtime import sources  # noqa: E402
-from gps_sdr_tpu.runtime.buffer import make_buffer  # noqa: E402
+from gps_sdr.runtime import sources  # noqa: E402
+from gps_sdr.runtime.buffer import make_buffer  # noqa: E402
 
 
 def _numpy_unpack(words):
@@ -115,10 +115,10 @@ def test_navscan_native_matches_python(monkeypatch):
     the Python walk exactly — decoded dicts, ST anchors, and the
     buffer-trim position — on buffers with noise prefixes, inverted
     streams, parity-corrupted subframes, and false preambles."""
-    pytest.importorskip("gps_sdr_tpu.models._navscan")
+    pytest.importorskip("gps_sdr.models._navscan")
     import numpy as np
 
-    from gps_sdr_tpu.models import navmsg
+    from gps_sdr.models import navmsg
 
     rng = np.random.default_rng(7)
 
@@ -169,12 +169,12 @@ def test_navscan_native_matches_python(monkeypatch):
 # tests above, which guard independent native libraries
 @pytest.fixture
 def evalcore():
-    return pytest.importorskip("gps_sdr_tpu._evalcore")
+    return pytest.importorskip("gps_sdr._evalcore")
 
 
 def _synth_eph(rng):
     """A plausible broadcast ephemeris dict (all 26 EPHEM_KEYS)."""
-    from gps_sdr_tpu.models.pseudorange import EPHEM_KEYS
+    from gps_sdr.models.pseudorange import EPHEM_KEYS
     eph = {
         "weekNum": 2200, "Tgd": rng.normal(0, 5e-9),
         "Toc": 302400.0 + rng.uniform(-1000, 1000),
@@ -199,8 +199,8 @@ def _synth_eph(rng):
 def test_evalcore_ecef_matches_python(evalcore):
     """Native Kepler/ECEF propagation vs orbits.ecef_coord: sub-um
     agreement over random ephemerides, times, and both rel_corr modes."""
-    from gps_sdr_tpu.models import orbits
-    from gps_sdr_tpu.models.pseudorange import EPHEM_KEYS
+    from gps_sdr.models import orbits
+    from gps_sdr.models.pseudorange import EPHEM_KEYS
 
     rng = np.random.default_rng(11)
     n = 64
@@ -223,7 +223,7 @@ def _fix_problem(rng, E, n, pad=0):
     """Synthetic fix geometry: truth receiver + satellites at GPS
     radius; delays include a clock offset; optional padded duplicate
     columns at sigma 1e7 (the _fix_prepare convention)."""
-    from gps_sdr_tpu.config import GPS_C
+    from gps_sdr.config import GPS_C
     rec = np.array([4157000.0, 606000.0, 4775000.0])
     coords = np.empty((E, 3, n + pad))
     delays = np.empty((E, n + pad))
@@ -252,7 +252,7 @@ def _fix_problem(rng, E, n, pad=0):
 ])
 def test_evalcore_fix_batch_matches_python(evalcore, monkeypatch,
                                            height, rp0, crf):
-    from gps_sdr_tpu.ops.pvt import solve_fix_batch
+    from gps_sdr.ops.pvt import solve_fix_batch
 
     rng = np.random.default_rng(5)
     E, n = 24, 7
@@ -288,8 +288,8 @@ def test_evalcore_fix_batch_matches_python(evalcore, monkeypatch,
 def test_evalcore_sigma_slope_matches_python(evalcore, monkeypatch):
     """Sequential per-chunk calls must evolve the slope history and the
     per-entry sigma/slope identically to the numpy walk."""
-    from gps_sdr_tpu.config import ReceiverConfig
-    from gps_sdr_tpu.models.pseudorange import PseudorangeEngine
+    from gps_sdr.config import ReceiverConfig
+    from gps_sdr.models.pseudorange import PseudorangeEngine
 
     cfg = ReceiverConfig()
 
@@ -322,8 +322,8 @@ def test_evalcore_sigma_slope_matches_python(evalcore, monkeypatch):
 def test_evalcore_unwrap_matches_python(evalcore, monkeypatch):
     """Overflow unwrap + phase-error voting: corrected series, error
     votes, and log lines must match the numpy path."""
-    from gps_sdr_tpu.config import ReceiverConfig
-    from gps_sdr_tpu.runtime.evaluator import unwrap_code_phases
+    from gps_sdr.config import ReceiverConfig
+    from gps_sdr.runtime.evaluator import unwrap_code_phases
 
     cfg = ReceiverConfig()
     cs = cfg.code_samples

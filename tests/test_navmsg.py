@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.models import navmsg
+from gps_sdr.models import navmsg
 
 SF1 = {
     "weekNum": 312, "satAcc": 0, "satHealth": 0, "IODC": 437,

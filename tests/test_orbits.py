@@ -7,8 +7,8 @@ SatPos was verified only through position fixes, SURVEY.md section 4)."""
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import GPS_C, WEEK_IN_SEC
-from gps_sdr_tpu.models import orbits
+from gps_sdr.config import GPS_C, WEEK_IN_SEC
+from gps_sdr.models import orbits
 
 EPH = {
     "weekNum": 312, "Tgd": 1.2e-9, "Toc": 66600.0, "af2": 0.0,

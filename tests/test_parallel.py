@@ -9,14 +9,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.acquisition import acquire
-from gps_sdr_tpu.ops.tracking import (init_channel_states, reset_channel,
-                                      track_chunk)
-from gps_sdr_tpu.parallel import (acquire_sharded, make_mesh, pad_channels,
-                                  track_sharded)
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.acquisition import acquire
+from gps_sdr.ops.tracking import (init_channel_states, reset_channel,
+                                  track_chunk)
+from gps_sdr.parallel import (acquire_sharded, make_mesh, pad_channels,
+                              track_sharded)
 from tests.conftest import cached_synth
 
 CFG = ReceiverConfig()

@@ -10,10 +10,10 @@ unwrap, time bookkeeping and fix pipeline end to end.
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import DEFAULT as CFG
-from gps_sdr_tpu.models import navmsg
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.runtime.evaluator import EpochInput, Evaluator
+from gps_sdr.config import DEFAULT as CFG
+from gps_sdr.models import navmsg
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.runtime.evaluator import EpochInput, Evaluator
 
 
 def ideal_measurements(scn, n_sec):
@@ -169,7 +169,7 @@ def test_merged_epochs_match_per_chunk(scenario):
     """Throughput mode: merge_epochs over 8 s windows produces the same
     fixes as per-second processing (one Evaluator.process per download
     window — the serving/bench fast path)."""
-    from gps_sdr_tpu.runtime.evaluator import merge_epochs
+    from gps_sdr.runtime.evaluator import merge_epochs
 
     scn = scenario
     cfg = CFG

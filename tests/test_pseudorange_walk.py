@@ -13,10 +13,10 @@ import copy
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models import orbits
-from gps_sdr_tpu.models.navmsg import decode_subframe, encode_subframe
-from gps_sdr_tpu.models.pseudorange import PseudorangeEngine, _linfit
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models import orbits
+from gps_sdr.models.navmsg import decode_subframe, encode_subframe
+from gps_sdr.models.pseudorange import PseudorangeEngine, _linfit
 from tests.test_navmsg import SF1, SF2, SF3
 
 
@@ -211,9 +211,9 @@ def test_finish_deferred_mixed_preloaded_and_decoded_ephems():
     extra "SAT" entry (models/ephemeris.py:51) that freshly decoded
     ones lack — batching the two together raised KeyError before
     EPHEM_KEYS pinned the field list."""
-    from gps_sdr_tpu.models.pseudorange import (DeferredRows,
-                                                finish_deferred)
-    from gps_sdr_tpu.models.scenario import make_scenario
+    from gps_sdr.models.pseudorange import (DeferredRows,
+                                            finish_deferred)
+    from gps_sdr.models.scenario import make_scenario
 
     cfg = ReceiverConfig()
     scn = make_scenario(cfg, n_sats=2, duration_sec=12.0, seed=6)

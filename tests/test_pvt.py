@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import GPS_C, OMEGA_EARTH
-from gps_sdr_tpu.ops.pvt import solve_fix
-from gps_sdr_tpu.utils.geodesy import geo_to_ecef
+from gps_sdr.config import GPS_C, OMEGA_EARTH
+from gps_sdr.ops.pvt import solve_fix
+from gps_sdr.utils.geodesy import geo_to_ecef
 
 REC = np.array(geo_to_ecef(49.082961, 8.307581, 150.0))
 R_ORBIT = 26_560_000.0
@@ -87,7 +87,7 @@ def test_fix_three_sats_with_height():
 def test_batch_matches_single():
     """solve_fix_batch must converge to the same optima as per-epoch
     solve_fix (the evaluator batches epochs per satellite count)."""
-    from gps_sdr_tpu.ops.pvt import solve_fix_batch
+    from gps_sdr.ops.pvt import solve_fix_batch
 
     rng = np.random.default_rng(9)
     sat_pos = np.stack([_sat_constellation(6, seed=10 + i)
@@ -110,7 +110,7 @@ def test_batch_matches_single():
 
 
 def test_batch_matches_single_height_mode():
-    from gps_sdr_tpu.ops.pvt import solve_fix_batch
+    from gps_sdr.ops.pvt import solve_fix_batch
 
     sat_pos = np.stack([_sat_constellation(3, seed=20 + i)
                         for i in range(3)])
@@ -125,7 +125,7 @@ def test_batch_matches_single_height_mode():
 
 def test_batch_warm_start_shared():
     """A shared warm start must not change the converged optimum."""
-    from gps_sdr_tpu.ops.pvt import solve_fix_batch
+    from gps_sdr.ops.pvt import solve_fix_batch
 
     sat_pos = np.stack([_sat_constellation(5, seed=30 + i)
                         for i in range(4)])
@@ -177,7 +177,7 @@ def test_clock_rate_free_unknown_recovers_y():
 
 
 def test_clock_rate_batch_matches_single():
-    from gps_sdr_tpu.ops.pvt import solve_fix_batch
+    from gps_sdr.ops.pvt import solve_fix_batch
 
     y = 1.5e-6
     sat_pos = np.stack([_sat_constellation(7, seed=40 + i)

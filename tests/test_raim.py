@@ -15,10 +15,10 @@ import os
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-from gps_sdr_tpu.runtime.sources import pack_iq, replay_blocks
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+from gps_sdr.runtime.sources import pack_iq, replay_blocks
 from tests.conftest import _SYNTH_CACHE
 
 SEC = 30.0
@@ -55,7 +55,7 @@ def _capture_path():
 
 
 def _run(cfg):
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     session = Session(cfg)
     session.run_source(replay_blocks(_capture_path(), cfg))

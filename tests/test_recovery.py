@@ -18,16 +18,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.ephemeris import EphemerisAssembler, SatStatus
-from gps_sdr_tpu.models.navmsg import encode_subframe, decode_subframe
-from gps_sdr_tpu.models.pseudorange import PseudorangeEngine
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.tracking import (init_channel_states, outs_to_numpy,
-                                      reset_channel, track_chunk)
-from gps_sdr_tpu.runtime.receiver import Receiver
-from gps_sdr_tpu.runtime.channelmgr import select_sats
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.ephemeris import EphemerisAssembler, SatStatus
+from gps_sdr.models.navmsg import encode_subframe, decode_subframe
+from gps_sdr.models.pseudorange import PseudorangeEngine
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.tracking import (init_channel_states, outs_to_numpy,
+                                  reset_channel, track_chunk)
+from gps_sdr.runtime.receiver import Receiver
+from gps_sdr.runtime.channelmgr import select_sats
 from tests.conftest import cached_synth
 from tests.test_navmsg import SF1, SF2, SF3  # canonical field dicts
 
@@ -171,7 +171,7 @@ def test_unhealthy_sv_excluded():
 # -- (f) outlier gate ---------------------------------------------------------
 
 def test_outlier_gate_with_speed_allowance():
-    from gps_sdr_tpu.runtime.evaluator import Evaluator
+    from gps_sdr.runtime.evaluator import Evaluator
     cfg = ReceiverConfig()          # gate 500 m + 60 m/s allowance
     ev = Evaluator(cfg)
     base = np.array([4_000_000.0, 600_000.0, 4_800_000.0])

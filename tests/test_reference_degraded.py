@@ -21,18 +21,15 @@ never a reimplementation.
 """
 
 import os
-import pickle
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-from gps_sdr_tpu.runtime.sources import pack_iq, replay_blocks
-from tests.conftest import _SYNTH_CACHE
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+from gps_sdr.runtime.sources import pack_iq, replay_blocks
+from tests.conftest import _SYNTH_CACHE, reference_result
 
 SEC = 64.0
 SEED = 2
@@ -83,20 +80,12 @@ def _capture_path():
 
 @pytest.fixture(scope="module")
 def ref_result():
-    capture = _capture_path()
-    out = os.path.join(_SYNTH_CACHE, "degraded_refresult_v1.pkl")
-    if not os.path.exists(out):
-        driver = os.path.join(os.path.dirname(__file__), "ref_driver.py")
-        subprocess.run([sys.executable, driver, capture, out + ".tmp"],
-                       check=True, timeout=3600)
-        os.replace(out + ".tmp", out)
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    return reference_result("degraded_refresult_v1.pkl", _capture_path)
 
 
 @pytest.fixture(scope="module")
 def ours():
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     path = _capture_path()
     session = Session(CFG, record_epochs_to="memory")

@@ -23,18 +23,15 @@ one extra Session replay.
 """
 
 import os
-import pickle
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-from gps_sdr_tpu.runtime.sources import pack_iq, replay_blocks
-from tests.conftest import _SYNTH_CACHE
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+from gps_sdr.runtime.sources import pack_iq, replay_blocks
+from tests.conftest import _SYNTH_CACHE, reference_result
 
 SEC = 48.0
 SEED = 2                  # GDOP 2.26 at the golden coordinates
@@ -82,21 +79,13 @@ def _capture_path():
 def ref_result():
     """Run the reference pipeline (subprocess; see ref_driver.py) once
     per capture; cache the pickled outputs."""
-    capture = _capture_path()
-    out = os.path.join(_SYNTH_CACHE, "diff_refresult_v1.pkl")
-    if not os.path.exists(out):
-        driver = os.path.join(os.path.dirname(__file__), "ref_driver.py")
-        subprocess.run([sys.executable, driver, capture, out + ".tmp"],
-                       check=True, timeout=3600)
-        os.replace(out + ".tmp", out)
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    return reference_result("diff_refresult_v1.pkl", _capture_path)
 
 
 @pytest.fixture(scope="module")
 def ours():
     """This repo's pipeline on the same capture."""
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     path = _capture_path()
     session = Session(CFG, record_epochs_to="memory")
@@ -234,8 +223,8 @@ def ours_device(ref_result):
     import jax
     import jax.numpy as jnp
 
-    from gps_sdr_tpu.ops.tracking import to_grouped_planar
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.ops.tracking import to_grouped_planar
+    from gps_sdr.runtime.session import Session
 
     path = _capture_path()
     blocks = np.stack(list(replay_blocks(path, CFG)))
@@ -320,20 +309,13 @@ def ref_result16():
     """The reference at N_CYC=16 (its documented fast-machine mode,
     gpsglob.py:122-124) on the SAME capture bytes — ref_driver patches
     gpsglob before the star-imports copy the globals."""
-    capture = _capture_path()
-    out = os.path.join(_SYNTH_CACHE, "diff_refresult16_v1.pkl")
-    if not os.path.exists(out):
-        driver = os.path.join(os.path.dirname(__file__), "ref_driver.py")
-        subprocess.run([sys.executable, driver, capture, out + ".tmp",
-                        "--n-cyc", "16"], check=True, timeout=3600)
-        os.replace(out + ".tmp", out)
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    return reference_result("diff_refresult16_v1.pkl", _capture_path,
+                            "--n-cyc", "16")
 
 
 @pytest.fixture(scope="module")
 def ours16():
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     path = _capture_path()
     session = Session(CFG16, record_epochs_to="memory")
@@ -417,20 +399,13 @@ CFG8 = ReceiverConfig(n_cyc=8)
 def ref_result8():
     """The reference at N_CYC=8 on the SAME capture bytes (ref_driver
     patches gpsglob before the star-imports copy the globals)."""
-    capture = _capture_path()
-    out = os.path.join(_SYNTH_CACHE, "diff_refresult8_v1.pkl")
-    if not os.path.exists(out):
-        driver = os.path.join(os.path.dirname(__file__), "ref_driver.py")
-        subprocess.run([sys.executable, driver, capture, out + ".tmp",
-                        "--n-cyc", "8"], check=True, timeout=3600)
-        os.replace(out + ".tmp", out)
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    return reference_result("diff_refresult8_v1.pkl", _capture_path,
+                            "--n-cyc", "8")
 
 
 @pytest.fixture(scope="module")
 def ours8():
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     path = _capture_path()
     session = Session(CFG8, record_epochs_to="memory")

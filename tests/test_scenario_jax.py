@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario, synth_scenario_blocks
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.scenario import make_scenario, synth_scenario_blocks
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth
 
 CFG = ReceiverConfig()
 
@@ -49,7 +49,7 @@ def test_oscillator_model_matches_oracle():
 def test_oscillator_offsets_measured_doppler():
     """A +2 ppm oscillator must shift every satellite's observed carrier
     by ~ -2e-6 * L1 (~ -3151 Hz) relative to the unimpaired scenario."""
-    from gps_sdr_tpu.config import L1_FREQ
+    from gps_sdr.config import L1_FREQ
 
     base = make_scenario(CFG, n_sats=1, duration_sec=8.0, seed=7)
     imp = make_scenario(CFG, n_sats=1, duration_sec=8.0, seed=7,
@@ -80,9 +80,9 @@ def test_knot_interp_params_match_exact():
     already carry."""
     import numpy as np
 
-    from gps_sdr_tpu.config import ReceiverConfig
-    from gps_sdr_tpu.models.scenario import make_scenario
-    from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
+    from gps_sdr.config import ReceiverConfig
+    from gps_sdr.models.scenario import make_scenario
+    from gps_sdr.models.scenario_jax import DeviceScenarioSynth
 
     cfg = ReceiverConfig()
     scn = make_scenario(cfg, n_sats=6, seed=7, duration_sec=8.0)

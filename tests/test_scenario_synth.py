@@ -9,8 +9,8 @@ boundary — downstream this looked like a PLL half-cycle slip at block
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario, synth_scenario_blocks
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.scenario import make_scenario, synth_scenario_blocks
 
 CFG = ReceiverConfig()
 

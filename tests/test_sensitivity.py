@@ -9,14 +9,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.navmsg import NavDecoder
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.acquisition import acquire_all
-from gps_sdr_tpu.ops.tracking import (cn0_from_amp, init_channel_states,
-                                      outs_to_numpy, reset_channel,
-                                      track_chunk)
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.navmsg import NavDecoder
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.acquisition import acquire_all
+from gps_sdr.ops.tracking import (cn0_from_amp, init_channel_states,
+                                  outs_to_numpy, reset_channel,
+                                  track_chunk)
 from tests.conftest import cached_synth
 
 CFG = ReceiverConfig()

@@ -4,11 +4,11 @@ including cold-start acquisition and the pipelined compact download."""
 
 import numpy as np
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-from gps_sdr_tpu.runtime.receiver import Receiver
-from gps_sdr_tpu.runtime.serving import StreamServer
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+from gps_sdr.runtime.receiver import Receiver
+from gps_sdr.runtime.serving import StreamServer
 
 CFG = ReceiverConfig()
 SEC = 8
@@ -55,7 +55,7 @@ def test_stream_server_sharded_matches_unsharded():
 
     Streams share no state, so the mesh layout must be a pure
     performance choice (parallel/mesh.py make_stream_mesh)."""
-    from gps_sdr_tpu.parallel.mesh import make_stream_mesh
+    from gps_sdr.parallel.mesh import make_stream_mesh
 
     scn = make_scenario(CFG, n_sats=4, duration_sec=SEC + 6.0, seed=7)
     dev = DeviceScenarioSynth(scn, noise_std=0.4)
@@ -82,7 +82,7 @@ def test_stream_server_window_epochs_match_per_chunk():
     """epoch_per_window serving == merge_epochs over the per-chunk
     serving stream (the bench serving headline path runs on this exact
     branch: per-stream outs concat + one consume per window)."""
-    from gps_sdr_tpu.runtime.evaluator import merge_epochs
+    from gps_sdr.runtime.evaluator import merge_epochs
 
     sec = 16        # long enough that actual subframes decode
     scn = make_scenario(CFG, n_sats=4, duration_sec=sec + 6.0, seed=5)
@@ -126,9 +126,9 @@ def test_process_many_matches_per_stream():
     row-for-row identical to per-stream Evaluator.process — same
     positions, stats, sat_results — because ecef_coord is elementwise
     and stacking streams only grows the batch."""
-    from gps_sdr_tpu.models.scenario import make_scenario as mk
-    from gps_sdr_tpu.runtime.evaluator import Evaluator, process_many
-    from gps_sdr_tpu.runtime.receiver import Receiver
+    from gps_sdr.models.scenario import make_scenario as mk
+    from gps_sdr.runtime.evaluator import Evaluator, process_many
+    from gps_sdr.runtime.receiver import Receiver
 
     sec = 20.0
     scn = mk(CFG, n_sats=6, duration_sec=sec + 12.0, seed=4)
@@ -164,9 +164,9 @@ def test_process_many_heterogeneous_streams():
     pad to the global count with 1e7-sigma duplicate columns (weight
     ~1e-14 of a real row), so batched positions must match per-stream
     evaluation to far below the fix noise floor."""
-    from gps_sdr_tpu.models.scenario import make_scenario as mk
-    from gps_sdr_tpu.runtime.evaluator import Evaluator, process_many
-    from gps_sdr_tpu.runtime.receiver import Receiver
+    from gps_sdr.models.scenario import make_scenario as mk
+    from gps_sdr.runtime.evaluator import Evaluator, process_many
+    from gps_sdr.runtime.receiver import Receiver
 
     sec = 20.0
     t = CFG.no_sec
@@ -257,7 +257,7 @@ def test_shared_cold_start_sweeps_once(monkeypatch):
     cold start must run the device acquisition grid ONCE and replicate
     the result — not one full sweep per stream (the equality-vs-single-
     receiver test above pins that the replicated result is identical)."""
-    from gps_sdr_tpu.runtime import receiver as receiver_mod
+    from gps_sdr.runtime import receiver as receiver_mod
 
     scn = make_scenario(CFG, n_sats=4, duration_sec=SEC + 6.0, seed=5)
     dev = DeviceScenarioSynth(scn, noise_std=0.4)

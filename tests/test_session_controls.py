@@ -6,10 +6,10 @@ import time
 
 import numpy as np
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.runtime.session import Session
-from gps_sdr_tpu.utils import io
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.runtime.session import Session
+from gps_sdr.utils import io
 from tests.conftest import cached_synth
 
 
@@ -107,7 +107,7 @@ def test_plotui_buttons_emit_reference_events():
     axes."""
     import matplotlib
     matplotlib.use("Agg", force=True)
-    from gps_sdr_tpu.ui.plot import PlotUI
+    from gps_sdr.ui.plot import PlotUI
 
     ui = PlotUI(interactive=False)
     try:

@@ -2,17 +2,17 @@
 
 sim_jax trades the oracle's exact per-sample float64 interpolation for
 f32 block-relative arithmetic (and a slice-select code/bit lookup that
-avoids per-sample gathers, which are pathologically slow on TPU); this
+avoids per-sample gathers); this
 pins the two implementations together."""
 
 import numpy as np
 import jax
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.sim_jax import JaxSynth
-from gps_sdr_tpu.models.simulator import (SatSignal, random_bits,
-                                          synth_stream_chunk)
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.sim_jax import JaxSynth
+from gps_sdr.models.simulator import (SatSignal, random_bits,
+                                      synth_stream_chunk)
 
 CFG = ReceiverConfig()
 

@@ -7,10 +7,10 @@ the scenario simulator's geometric truth.
 
 import numpy as np
 
-from gps_sdr_tpu.config import DEFAULT as CFG
-from gps_sdr_tpu.models.scenario import make_scenario, synth_scenario_blocks
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.snapshot import snapshot_fix, solve_snapshot
+from gps_sdr.config import DEFAULT as CFG
+from gps_sdr.models.scenario import make_scenario, synth_scenario_blocks
+from gps_sdr.ops import cacode
+from gps_sdr.ops.snapshot import snapshot_fix, solve_snapshot
 
 from conftest import cached_synth
 
@@ -89,13 +89,13 @@ def test_snapshot_end_to_end():
 
 
 def test_snapshot_cli(tmp_path, capsys):
-    """`python -m gps_sdr_tpu snapshot` on an 8-bit capture + cached
+    """`python -m gps_sdr snapshot` on an 8-bit capture + cached
     ephemerides + coarse geo/time prior."""
     import re
 
-    from gps_sdr_tpu import cli
-    from gps_sdr_tpu.runtime.sources import pack_iq
-    from gps_sdr_tpu.utils.io import save_ephemerides
+    from gps_sdr import cli
+    from gps_sdr.runtime.sources import pack_iq
+    from gps_sdr.utils.io import save_ephemerides
 
     scn = make_scenario(CFG, n_sats=7, duration_sec=4.0, seed=11)
     first_block = 8

@@ -5,11 +5,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.tracking import (init_channel_states, reset_channel,
-                                      track_chunk_batched, track_streams)
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.tracking import (init_channel_states, reset_channel,
+                                  track_chunk_batched, track_streams)
 
 CFG = ReceiverConfig(blocks_per_step=4)
 

@@ -10,7 +10,7 @@ which the reference computes.
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.runtime.trackfilter import TrackFilter
+from gps_sdr.runtime.trackfilter import TrackFilter
 
 
 def test_static_convergence():
@@ -65,8 +65,8 @@ def test_innovation_gate_rejects_outliers():
 
 
 def _run_capture(cfg):
-    from gps_sdr_tpu.runtime.session import Session
-    from gps_sdr_tpu.runtime.sources import replay_blocks
+    from gps_sdr.runtime.session import Session
+    from gps_sdr.runtime.sources import replay_blocks
     from tests.test_velocity import _capture_path
 
     session = Session(cfg)
@@ -75,7 +75,7 @@ def _run_capture(cfg):
 
 
 def _err_vs_truth(rows, scn, n_skip):
-    from gps_sdr_tpu.utils.gpstime import gps_datetime
+    from gps_sdr.utils.gpstime import gps_datetime
 
     t0 = gps_datetime(scn.tow0, scn.week).timestamp() + 0.25
     t = np.array([r[0] for r in rows[n_skip:]])
@@ -112,9 +112,9 @@ def test_outage_coasting_bridges_gap():
     """A mid-run interval with too few satellites for a fix must yield
     track-filter PREDICTIONS (ev.coasted) near the trajectory instead
     of a silent gap — the reference stops producing positions."""
-    from gps_sdr_tpu.runtime.evaluator import EpochInput, Evaluator
-    from gps_sdr_tpu.runtime.session import Session
-    from gps_sdr_tpu.runtime.sources import replay_blocks
+    from gps_sdr.runtime.evaluator import EpochInput, Evaluator
+    from gps_sdr.runtime.session import Session
+    from gps_sdr.runtime.sources import replay_blocks
     from tests.test_velocity import CFG, _capture_path, _scenario
 
     cfg = CFG.replace(track_filter_q=1.0)
@@ -142,7 +142,7 @@ def test_outage_coasting_bridges_gap():
         ev.process(e)
     assert len(ev.coasted) >= n_before + 2, "no coasted predictions"
     scn = _scenario()
-    from gps_sdr_tpu.utils.gpstime import gps_datetime
+    from gps_sdr.utils.gpstime import gps_datetime
     t0 = gps_datetime(scn.tow0, scn.week).timestamp() + 0.25
     for row in ev.coasted[n_before:]:
         truth = scn.rec_ecef + (row[0] - t0) * scn.rec_vel

@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import DEFAULT as CFG, L1_FREQ
-from gps_sdr_tpu.models import navmsg
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.acquisition import acquire_all
-from gps_sdr_tpu.ops.tracking import init_channel_states, outs_to_numpy, \
+from gps_sdr.config import DEFAULT as CFG, L1_FREQ
+from gps_sdr.models import navmsg
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.acquisition import acquire_all
+from gps_sdr.ops.tracking import init_channel_states, outs_to_numpy, \
     reset_channel, track_chunk
 
 N_CH = 4

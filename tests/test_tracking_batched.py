@@ -11,13 +11,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gps_sdr_tpu.config import ReceiverConfig
-from gps_sdr_tpu.models.navmsg import NavDecoder
-from gps_sdr_tpu.models.simulator import SatSignal, random_bits, synth_stream
-from gps_sdr_tpu.ops import cacode
-from gps_sdr_tpu.ops.tracking import (init_channel_states, outs_to_numpy,
-                                      reset_channel, track_chunk,
-                                      track_chunk_batched)
+from gps_sdr.config import ReceiverConfig
+from gps_sdr.models.navmsg import NavDecoder
+from gps_sdr.models.simulator import SatSignal, random_bits, synth_stream
+from gps_sdr.ops import cacode
+from gps_sdr.ops.tracking import (init_channel_states, outs_to_numpy,
+                                  reset_channel, track_chunk,
+                                  track_chunk_batched)
 
 CFG = ReceiverConfig()
 SATS = [
@@ -163,10 +163,8 @@ def test_batched_remainder_tail(stream):
 
 def test_planar_input_equals_complex():
     """Planar f32[T, 2, ngps] IQ must produce the same results as c64
-    blocks through both the XLA and the Pallas heavy stage (the planar
-    layout exists to avoid TPU complex-emulation custom calls).  Small
-    config: Pallas interpret-mode compiles are expensive on this host."""
-    from gps_sdr_tpu.ops.tracking import reset_channel as _reset
+    blocks through the K-block path (small config)."""
+    from gps_sdr.ops.tracking import reset_channel as _reset
 
     cfg_s = ReceiverConfig(code_samples=256, n_cyc=8, corr_avg=4,
                            sweep_corr_avg=2, blocks_per_step=4)
@@ -188,18 +186,16 @@ def test_planar_input_equals_complex():
             ffts[i] = cacode.ca_fft_table(cfg_s)[s.prn]
         return st, jnp.asarray(codes), jnp.asarray(ffts)
 
-    for pallas in (False, True):
-        cfgk = cfg_s.replace(use_pallas_kernels=pallas,
-                             use_pallas_cheap=pallas)
-        st, codes, ffts = states_s()
-        ref_st, ref = track_chunk_batched(cfgk, st, blocks_c,
-                                          jnp.int32(1), codes, ffts)
-        st2, codes, ffts = states_s()
-        got_st, got = track_chunk_batched(cfgk, st2, planar,
-                                          jnp.int32(1), codes, ffts)
-        np.testing.assert_allclose(np.asarray(ref.code_phase),
-                                   np.asarray(got.code_phase), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(ref.amplitude),
-                                   np.asarray(got.amplitude), rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(ref_st.freq),
-                                   np.asarray(got_st.freq), atol=1e-4)
+    cfgk = cfg_s
+    st, codes, ffts = states_s()
+    ref_st, ref = track_chunk_batched(cfgk, st, blocks_c,
+                                      jnp.int32(1), codes, ffts)
+    st2, codes, ffts = states_s()
+    got_st, got = track_chunk_batched(cfgk, st2, planar,
+                                      jnp.int32(1), codes, ffts)
+    np.testing.assert_allclose(np.asarray(ref.code_phase),
+                               np.asarray(got.code_phase), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(ref.amplitude),
+                               np.asarray(got.amplitude), rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(ref_st.freq),
+                               np.asarray(got_st.freq), atol=1e-4)

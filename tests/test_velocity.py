@@ -14,12 +14,12 @@ import os
 import numpy as np
 import pytest
 
-from gps_sdr_tpu.config import GPS_C, L1_FREQ, ReceiverConfig
-from gps_sdr_tpu.models.scenario import make_scenario
-from gps_sdr_tpu.models.scenario_jax import DeviceScenarioSynth
-from gps_sdr_tpu.ops.pvt import solve_velocity
-from gps_sdr_tpu.runtime.sources import pack_iq, replay_blocks
-from gps_sdr_tpu.utils.geodesy import enu_to_ecef_vec
+from gps_sdr.config import GPS_C, L1_FREQ, ReceiverConfig
+from gps_sdr.models.scenario import make_scenario
+from gps_sdr.models.scenario_jax import DeviceScenarioSynth
+from gps_sdr.ops.pvt import solve_velocity
+from gps_sdr.runtime.sources import pack_iq, replay_blocks
+from gps_sdr.utils.geodesy import enu_to_ecef_vec
 from tests.conftest import _SYNTH_CACHE
 
 # carrier smoothing has zero lag on real dynamics (the carrier tracks
@@ -86,7 +86,7 @@ def _capture_path():
 
 @pytest.fixture(scope="module")
 def replayed():
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
 
     path = _capture_path()
     scn = _scenario()
@@ -99,7 +99,7 @@ def test_moving_receiver_track(replayed):
     """Fixes must follow the true trajectory rec_ecef + v*(t - t0):
     the fix-series linear fit recovers the velocity, and the mean
     truth-relative error stays meters-class."""
-    from gps_sdr_tpu.utils.gpstime import gps_datetime
+    from gps_sdr.utils.gpstime import gps_datetime
 
     scn, session, summary = replayed
     ev = session.evaluator
@@ -141,7 +141,7 @@ def test_doppler_velocity_series(replayed):
 def test_static_velocity_near_zero():
     """On a static capture the velocity series must sit near zero (the
     atmosphere closed-loop capture doubles as the static fixture)."""
-    from gps_sdr_tpu.runtime.session import Session
+    from gps_sdr.runtime.session import Session
     from tests.test_atmos_closed_loop import CFG as ACFG
     from tests.test_atmos_closed_loop import _capture_path as acap
 
